@@ -1033,7 +1033,7 @@ def cmd_linsearch(args):
 
 
 def cmd_version(args):
-    print("metaeuk-tpu 1.0 (MetaEuk 7.bba0d80 capabilities, TPU-native)")
+    print("metaeuk-tpu 1.0 (MetaEuk 7.bba0d80 capabilities)")
     return 0
 
 
@@ -1233,9 +1233,9 @@ def cmd_dbtool8(args):
 
 
 def cmd_gpuserver(args):
-    """Resident TPU search server (the reference gpuserver role)."""
+    """Resident search server (the reference gpuserver role)."""
     from .server import run_server
-    sock = args.socket or f"{args.target_db}.tpuserver.sock"
+    sock = args.socket or f"{args.target_db}.searchserver.sock"
     print(f"serving {args.target_db} on {sock}")
     run_server(args.target_db, sock, sensitivity=args.s,
                max_seqs=args.max_seqs,
@@ -1499,7 +1499,7 @@ def cmd_summarizealis(args):
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="metaeuk-tpu",
-        description="TPU-native gene discovery (MetaEuk capabilities)")
+        description="GPU gene discovery (MetaEuk capabilities)")
     sub = ap.add_subparsers(dest="command", required=True)
 
     ep = sub.add_parser("easy-predict",
@@ -2112,7 +2112,7 @@ def main(argv=None):
         dp8.add_argument("-v", type=int, default=3)
         dp8.set_defaults(fn=cmd_dbtool8, tool=tool)
 
-    gs = sub.add_parser("gpuserver", help="resident TPU search server "
+    gs = sub.add_parser("gpuserver", help="resident search server "
                         "(keeps the target index + compiled kernels "
                         "warm across searches)")
     gs.add_argument("target_db")
@@ -2422,7 +2422,12 @@ def main(argv=None):
     bn.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
-    return args.fn(args)
+    from .platform import PlatformError
+    try:
+        return args.fn(args)
+    except PlatformError as e:
+        print(f"metaeuk-tpu: {e}", file=sys.stderr)
+        return 2
 
 
 if __name__ == "__main__":

@@ -9,15 +9,19 @@ import ctypes
 import os
 import pathlib
 import subprocess
+import threading
 
 import numpy as np
 
 _LIB = None
 _TRIED = False
+_LOCK = threading.Lock()  # one build; other threads wait for its result
 
 _NATIVE_DIR = pathlib.Path(__file__).resolve().parent.parent / "native"
 _SRCS = [_NATIVE_DIR / "host_ops.cpp", _NATIVE_DIR / "prefilter.cpp",
-         _NATIVE_DIR / "nucl_align.cpp", _NATIVE_DIR / "prefilter_nucl.cpp"]
+         _NATIVE_DIR / "nucl_align.cpp", _NATIVE_DIR / "prefilter_nucl.cpp",
+         _NATIVE_DIR / "sw_host.cpp"]
+_HDRS = [_NATIVE_DIR / "sw_dp.h"]
 _SRC = _SRCS[0]
 _SO = _NATIVE_DIR / "libmetaeuk_host.so"
 
@@ -35,12 +39,19 @@ def get_lib():
     global _LIB, _TRIED
     if _LIB is not None or _TRIED:
         return _LIB
-    _TRIED = True
+    with _LOCK:
+        if not _TRIED:
+            _LIB = _load()
+            _TRIED = True
+    return _LIB
+
+
+def _load():
     try:
         override = os.environ.get("METAEUK_HOST_SO")
         if override is None and (
                 not _SO.exists() or _SO.stat().st_mtime < max(
-                    s.stat().st_mtime for s in _SRCS)):
+                    s.stat().st_mtime for s in _SRCS + _HDRS)):
             _build()
         lib = ctypes.CDLL(override or str(_SO))
         i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
@@ -57,10 +68,16 @@ def get_lib():
             ctypes.c_int64, ctypes.c_int64, ctypes.c_double,
             i64p, i64p, i64p, i64p,
             ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64)]
-        _LIB = lib
+        i16p = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
+        i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        lib.sw_ends_host.restype = None
+        lib.sw_ends_host.argtypes = [
+            i16p, ctypes.c_int64, ctypes.c_int64, i32p, u8p, ctypes.c_int64,
+            i32p, i32p, i32p, i32p, i32p, ctypes.c_int64, ctypes.c_int64,
+            i32p, i32p, i32p]
+        return lib
     except Exception:
-        _LIB = None
-    return _LIB
+        return None
 
 
 def bind_comp_bias(lib):

@@ -5,14 +5,15 @@ Replicates the score/endpoint contract of the reference's striped SW
 
 - integer scoring: S(i,j) = blosum62_2bit[q_i][t_j] + int8-rounded
   composition bias at query position i (ssw_init, :1230-1236)
-- affine gaps (open 11 / extend 1), H floored at 0
+- affine gaps (open 11 / extend 1), H floored at 0 and saturated at
+  32767 (sw_sse2_word, :943)
 - end position: smallest target index whose column attains the global max,
   then smallest query index within that column (sw_sse2_byte:879-916)
 - start position: same DP on the reversed (q[:qEnd+1], t[:tEnd+1]) prefixes
   (ssw_align_private:398-482)
 
-This module is the correctness oracle for the TPU engines in sw_jax.py /
-sw_pallas.py.
+This module is the correctness oracle for the device engines: the XLA
+form in sw_jax.py and the CUDA kernel in native/sw_cuda.cu.
 """
 
 import numpy as np
@@ -41,7 +42,7 @@ def sw_end(profile, target):
         A = G + np.arange(Lq) * ge
         M = np.maximum.accumulate(A)
         F = np.concatenate(([NEG], M[:-1])) - go - (np.arange(Lq) - 1) * ge
-        Hn = np.maximum(G, F)
+        Hn = np.minimum(np.maximum(G, F), 32767)
         col_max = Hn.max() if Lq else 0
         if col_max > best:
             best = int(col_max)

@@ -1,6 +1,6 @@
-"""Batched Smith-Waterman on TPU via XLA (jit + scan).
+"""Batched Smith-Waterman via XLA (jit + scan).
 
-TPU-first reformulation of the reference's striped SW
+A batch reformulation of the reference's striped SW
 (lib/mmseqs/src/alignment/StripedSmithWaterman.cpp): instead of one
 SIMD-striped DP per pair, we run thousands of (query,target) pairs as a
 single dense batch. The column-wise affine-gap recurrence's in-column
@@ -10,9 +10,9 @@ resolved exactly with one max-plus cumulative scan per column:
     F(i,j) = max_{k<i} ( H(k,j) - gap_open - (i-1-k)*gap_extend )
            = cummax_k( H(k,j) + k*ge ) - gap_open - (i-1)*ge
 
-so each target column is one batch of pure VPU ops over (B, Lq), and the
-score-matrix construction S = one-hot(q)·blosum·one-hot(t) is a batched
-MXU matmul. End/start-position tie-breaking matches sw_sse2_byte
+so each target column is one batch of elementwise ops over (B, Lq), and
+the score matrix S[b,i,j] = prof[b,i,t[b,j]] is an integer gather. Cells
+saturate at SCORE_CAP like the reference's word kernel. End/start-position tie-breaking matches sw_sse2_byte
 (smallest target column attaining the global max, then smallest query row;
 StripedSmithWaterman.cpp:879-916), and start positions come from the same
 kernel on reversed prefixes (ssw_align_private:398-482).
@@ -29,6 +29,8 @@ from ..data.submat import BLOSUM62_SCORES
 NEG = -(10 ** 6)
 GO = 11
 GE = 1
+SCORE_CAP = 32767  # the reference word kernel saturates here
+                   # (StripedSmithWaterman.cpp:943 sw_sse2_word)
 
 
 def _scan_columns(S, t_mask, go=GO, ge=GE):
@@ -49,7 +51,7 @@ def _scan_columns(S, t_mask, go=GO, ge=GE):
         M = jax.lax.cummax(A, axis=1)
         F = jnp.pad(M[:, :-1], ((0, 0), (1, 0)), constant_values=NEG) \
             - go - (idx[None, :] - 1) * ge
-        Hn = jnp.maximum(G, F)
+        Hn = jnp.minimum(jnp.maximum(G, F), SCORE_CAP)
         col_max = jnp.max(Hn, axis=1)
         improved = col_max > best
         best = jnp.where(improved, col_max, best)
@@ -71,12 +73,10 @@ def _scan_columns(S, t_mask, go=GO, ge=GE):
     return best, q_end, t_end
 
 
-def _build_scores(prof, t_oh):
-    """S[b,i,j] = prof[b,i,t[b,j]] via batched MXU matmul."""
-    return jax.lax.dot_general(
-        prof.astype(jnp.float32), t_oh.astype(jnp.float32),
-        dimension_numbers=(((2,), (2,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32).astype(jnp.int32)
+def build_scores(prof, t_enc):
+    """S[b,i,j] = prof[b,i,t[b,j]] as an exact integer gather."""
+    return jnp.take_along_axis(prof, t_enc[:, None, :].astype(jnp.int32),
+                               axis=2, mode="clip")
 
 
 @functools.partial(jax.jit, static_argnums=(4, 5, 7, 8))
@@ -96,12 +96,10 @@ def sw_batch_ends(q_enc, q_bias, q_len, t_enc, Lq, Lt, t_len=None,
     B = q_enc.shape[0]
     submat = jnp.asarray(BLOSUM62_SCORES if submat is None else submat,
                          dtype=jnp.int32)
-    alph = submat.shape[0]
     prof = submat[q_enc] + q_bias[:, :, None]  # (B, Lq, alph)
     qmask = jnp.arange(Lq)[None, :] < q_len[:, None]
     prof = jnp.where(qmask[:, :, None], prof, NEG)
-    t_oh = jax.nn.one_hot(t_enc, alph, dtype=jnp.int32)  # (B, Lt, alph)
-    S = _build_scores(prof, t_oh)  # (B, Lq, Lt)
+    S = build_scores(prof, t_enc)  # (B, Lq, Lt)
     tmask = jnp.arange(Lt)[None, :] < t_len[:, None]
     S = jnp.where(tmask[:, None, :], S, NEG)
     return _scan_columns(S, tmask, go, ge)
@@ -139,8 +137,7 @@ def sw_batch_ends_prof(prof, q_len, t_enc, Lq, Lt, t_len=None):
     prof = prof.astype(jnp.int32)
     qmask = jnp.arange(Lq)[None, :] < q_len[:, None]
     prof = jnp.where(qmask[:, :, None], prof, NEG)
-    t_oh = jax.nn.one_hot(t_enc, 21, dtype=jnp.int32)
-    S = _build_scores(prof, t_oh)
+    S = build_scores(prof, t_enc)
     tmask = jnp.arange(Lt)[None, :] < t_len[:, None]
     S = jnp.where(tmask[:, None, :], S, NEG)
     return _scan_columns(S, tmask)

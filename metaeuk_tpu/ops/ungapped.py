@@ -1,15 +1,14 @@
-"""Ungapped (gapless) diagonal scoring — the TPU prefilter compute.
+"""Ungapped (gapless) diagonal scoring — the device prefilter compute.
 
-TPU-native equivalent of the reference's brute-force prefilter
+Equivalent of the reference's brute-force prefilter
 (lib/mmseqs/src/prefiltering/ungappedprefilter.cpp, the role the libmarv
 CUDA GAPLESS kernel plays in --gpu mode): for each (query, target) pair,
 the maximum local run score over all diagonals,
 
     D(i,j) = max(0, D(i-1,j-1) + S(i,j)),   score = max D
 
-computed with the same column-scan streaming structure as the gapped
-kernel (sw_pallas.py) but a 4-op inner loop. Both a Pallas kernel and an
-XLA scan fallback (CPU tests) share the contract.
+computed with the same column scan as the gapped XLA form (sw_jax.py)
+but a 2-op inner loop.
 """
 
 import functools
@@ -17,109 +16,21 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..data.submat import BLOSUM62_SCORES
+from .sw_jax import build_scores
 
 NEG = -(10 ** 6)
-TB = 128
-
-
-def _tj_for(Lq):
-    """Column-chunk size bounding the streamed score block to ~4MB VMEM."""
-    return max(8, min(256, (1 << 22) // (Lq * TB)))
-
-
-def _build_S(q_enc, q_bias, q_len, t_enc, Lq):
-    submat = jnp.asarray(BLOSUM62_SCORES, dtype=jnp.int32)
-    prof = (submat[q_enc] + q_bias[:, :, None]).astype(jnp.bfloat16)
-    qmask = jnp.arange(Lq)[None, :] < q_len[:, None]
-    prof = jnp.where(qmask[:, :, None], prof, 0)
-    t_oh = jax.nn.one_hot(t_enc, 21, dtype=jnp.bfloat16)
-    return jnp.einsum("bia,bja->jib", prof, t_oh,
-                      preferred_element_type=jnp.float32).astype(jnp.int8)
-
-
-def _gapless_kernel(Lq, TJ, s_ref, qlen_ref, tlen_ref, best_out, d_ref, best_ref):
-    j_chunk = pl.program_id(1)
-
-    @pl.when(j_chunk == 0)
-    def _():
-        d_ref[:] = jnp.zeros((Lq, TB), jnp.int32)
-        best_ref[:] = jnp.zeros((8, TB), jnp.int32)
-
-    iq = jax.lax.broadcasted_iota(jnp.int32, (Lq, TB), 0)
-    q_mask = iq < qlen_ref[0:1, :]
-    t_len = tlen_ref[0:1, :]
-
-    def col_body(jj, carry):
-        del carry
-        j_global = j_chunk * TJ + jj
-        s = jnp.where(q_mask, s_ref[jj].astype(jnp.int32), NEG)
-        D = d_ref[:]
-        Dd = jnp.concatenate([jnp.zeros((1, TB), jnp.int32), D[:-1]], axis=0)
-        Dn = jnp.maximum(0, Dd + s)
-        col_max = jnp.max(Dn, axis=0, keepdims=True)
-        valid = j_global < t_len
-        best_ref[0:1, :] = jnp.where(
-            valid, jnp.maximum(best_ref[0:1, :], col_max), best_ref[0:1, :])
-        d_ref[:] = Dn
-        return 0
-
-    jax.lax.fori_loop(0, TJ, col_body, 0)
-
-    @pl.when(j_chunk == pl.num_programs(1) - 1)
-    def _():
-        best_out[:] = best_ref[0:1, :]
-
-
-@functools.partial(jax.jit, static_argnums=(4, 5, 6))
-def gapless_scores_pallas(q_enc, q_bias, q_len, t_enc, Lq, Lt, interpret=False,
-                          t_len=None):
-    """Max gapless diagonal score per padded pair. B % 128 == 0."""
-    B = q_enc.shape[0]
-    assert B % TB == 0
-    TJ = _tj_for(Lq)
-    Lt_pad = ((Lt + TJ - 1) // TJ) * TJ
-    S = _build_S(q_enc, q_bias, q_len, t_enc, Lq)
-    S = jnp.pad(S, ((0, Lt_pad - Lt), (0, 0), (0, 0)))
-    qlen2 = q_len.reshape(1, B).astype(jnp.int32)
-    tlen2 = t_len.reshape(1, B).astype(jnp.int32)
-    kernel = functools.partial(_gapless_kernel, Lq, TJ)
-    best = pl.pallas_call(
-        kernel,
-        grid=(B // TB, Lt_pad // TJ),
-        in_specs=[
-            pl.BlockSpec((TJ, Lq, TB), lambda b, j: (j, 0, b),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, TB), lambda b, j: (0, b), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, TB), lambda b, j: (0, b), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, TB), lambda b, j: (0, b),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((1, B), jnp.int32),
-        scratch_shapes=[
-            pltpu.VMEM((Lq, TB), jnp.int32),
-            pltpu.VMEM((8, TB), jnp.int32),
-        ],
-        interpret=interpret,
-    )(S, qlen2, tlen2)
-    return best[0]
 
 
 @functools.partial(jax.jit, static_argnums=(4, 5))
 def gapless_scores_xla(q_enc, q_bias, q_len, t_enc, Lq, Lt, t_len=None):
-    """XLA scan fallback with the identical contract."""
+    """Max gapless diagonal score per padded pair."""
     submat = jnp.asarray(BLOSUM62_SCORES, dtype=jnp.int32)
     prof = submat[q_enc] + q_bias[:, :, None]
     qmask = jnp.arange(Lq)[None, :] < q_len[:, None]
     prof = jnp.where(qmask[:, :, None], prof, NEG)
-    t_oh = jax.nn.one_hot(t_enc, 21, dtype=jnp.int32)
-    S = jax.lax.dot_general(
-        prof.astype(jnp.float32), t_oh.astype(jnp.float32),
-        dimension_numbers=(((2,), (2,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32).astype(jnp.int32)
+    S = build_scores(prof, t_enc)
     tmask = jnp.arange(Lt)[None, :] < t_len[:, None]
     S = jnp.where(tmask[:, None, :], S, NEG)
 
@@ -137,9 +48,9 @@ def gapless_scores_xla(q_enc, q_bias, q_len, t_enc, Lq, Lt, t_len=None):
     return best
 
 
-@functools.partial(jax.jit, static_argnums=(7, 8, 9))
+@functools.partial(jax.jit, static_argnums=(7, 8))
 def gapless_gathered_jit(q_mat, qb_mat, q_lens, t_mat, t_lens, li, lj,
-                         Lq, Lt, use_pallas):
+                         Lq, Lt):
     """Device-side pair gather + gapless scoring in one dispatch."""
     valid = li >= 0
     li = jnp.maximum(li, 0)
@@ -148,18 +59,13 @@ def gapless_gathered_jit(q_mat, qb_mat, q_lens, t_mat, t_lens, li, lj,
     q_len = jnp.where(valid, q_lens[li], 0)
     t_enc = t_mat[lj]
     t_len = jnp.where(valid, t_lens[lj], 0)
-    if use_pallas:
-        return gapless_scores_pallas(q_enc, q_bias, q_len, t_enc, Lq, Lt,
-                                     False, t_len=t_len)
     return gapless_scores_xla(q_enc, q_bias, q_len, t_enc, Lq, Lt, t_len=t_len)
 
 
 def gapless_scores_gathered(q_mat, qb_mat, q_lens, t_mat, t_lens, li, lj):
     """Deferred (device-array) gapless scores for index-pair lists."""
-    use_pallas = jax.default_backend() != "cpu"
-    mult = TB if use_pallas else 8
     B = len(li)
-    Bp = ((B + mult - 1) // mult) * mult
+    Bp = ((B + 7) // 8) * 8
     li_p = np.full(Bp, -1, np.int32)
     lj_p = np.zeros(Bp, np.int32)
     li_p[:B] = li
@@ -168,28 +74,13 @@ def gapless_scores_gathered(q_mat, qb_mat, q_lens, t_mat, t_lens, li, lj):
     return gapless_gathered_jit(
         q_mat, qb_mat, jnp.asarray(q_lens, jnp.int32), t_mat,
         jnp.asarray(t_lens, jnp.int32), jnp.asarray(li_p), jnp.asarray(lj_p),
-        Lq, Lt, use_pallas)
+        Lq, Lt)
 
 
-def gapless_scores(q_enc, q_bias, q_len, t_enc, t_len, interpret=False):
-    """Dispatch to Pallas on TPU / XLA scan on CPU; host-padded batch."""
-    q_enc = np.asarray(q_enc, np.int32)
-    B = q_enc.shape[0]
-    Lq, Lt = int(q_enc.shape[1]), int(t_enc.shape[1])
-    if jax.default_backend() == "cpu" and not interpret:
-        return np.asarray(gapless_scores_xla(
-            q_enc, jnp.asarray(q_bias, jnp.int32), jnp.asarray(q_len, jnp.int32),
-            jnp.asarray(t_enc, jnp.int32), Lq, Lt,
-            t_len=jnp.asarray(t_len, jnp.int32)))
-    Bp = ((B + TB - 1) // TB) * TB
-    pad = Bp - B
-
-    def padb(a):
-        return np.pad(np.asarray(a, np.int32),
-                      [(0, pad)] + [(0, 0)] * (a.ndim - 1))
-
-    best = gapless_scores_pallas(
-        padb(q_enc), padb(np.asarray(q_bias)), padb(np.asarray(q_len)),
-        padb(np.asarray(t_enc)), Lq, Lt, interpret,
-        t_len=padb(np.asarray(t_len)))
-    return np.asarray(best)[:B]
+def gapless_scores(q_enc, q_bias, q_len, t_enc, t_len):
+    """Gapless scores for a host-padded batch."""
+    Lq, Lt = int(np.shape(q_enc)[1]), int(np.shape(t_enc)[1])
+    return np.asarray(gapless_scores_xla(
+        jnp.asarray(q_enc, jnp.int32), jnp.asarray(q_bias, jnp.int32),
+        jnp.asarray(q_len, jnp.int32), jnp.asarray(t_enc, jnp.int32),
+        Lq, Lt, t_len=jnp.asarray(t_len, jnp.int32)))

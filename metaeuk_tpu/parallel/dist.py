@@ -1,6 +1,6 @@
 """Multi-chip sharded search step.
 
-TPU-native replacement for the reference's split/MPI parallelism
+A device-mesh replacement for the reference's split/MPI parallelism
 (Prefiltering::runSplits / runMpiSplits, lib/mmseqs/src/prefiltering/
 Prefiltering.cpp:575-770, and Alignment::run(mpiRank,...),
 alignment/Alignment.cpp:219-243): instead of rank-partitioned files and a

@@ -20,8 +20,8 @@ with splits produces the exact single-process outputs — while each
 process builds 1/pc of the split indices (the wall-clock term that
 dominates large-target runs).
 
-Barriers use jax.experimental.multihost_utils (gloo on CPU, ICI/DCN on
-TPU slices). With process_count == 1 the machinery degenerates to the
+Barriers use jax.experimental.multihost_utils (gloo on CPU, NCCL on
+GPUs). With process_count == 1 the machinery degenerates to the
 sequential loop over all splits through the same code path.
 """
 

@@ -17,6 +17,7 @@ from ..io.seqdb import SeqDB, DBTYPE_AA, DBTYPE_NUCL
 from ..ops.chain import collect_optimal_sets, make_potential_exon, PLUS
 from ..ops.orf import OrfExtractor
 from ..params import Params
+from ..platform import platform
 from ..search.driver import SearchDriver
 from ..utils import log
 from .output import PredictionWriter
@@ -320,7 +321,7 @@ def _pipelined_extract_search(p, extractor, contigs, lo, hi, pref_fut,
     translatenucs, prefilter and align strictly serially as separate
     processes (data/predictexons.sh:40-88); here batch k+1 extracts
     while batch k prefilters on the remaining host cores and batch k-1
-    aligns on the TPU.  Per-fragment results are independent and batches
+    aligns on the device.  Per-fragment results are independent and batches
     are fragment-contiguous, so the concatenated hit table equals the
     single-pass one byte-for-byte (enforced by the forced-batches
     parity test).
@@ -413,8 +414,7 @@ def _pipelined_extract_search(p, extractor, contigs, lo, hi, pref_fut,
         log.info(f"fragments: {len(orf_aa)} "
                  f"(extract busy {busy['extract']:.2f}s)")
         driver = mk_driver()
-        import jax
-        if jax.default_backend() != "cpu":
+        if platform() == "gpu":
             driver.prewarm(orf_aa)
         parts = []
         all_qi = []
@@ -648,8 +648,7 @@ class EasyPredict:
                         pref = pref_fut.result() if pref_fut is not None \
                             else ReferenceKmerPrefilter(p, targets,
                                                         p.min_diag_score)
-                    import jax
-                    if jax.default_backend() != "cpu":
+                    if platform() == "gpu":
                         # pull alignment executables in (compile or
                         # persistent-cache load) while the prefilter
                         # occupies the host cores

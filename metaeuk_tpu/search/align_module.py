@@ -8,7 +8,7 @@ Smith-Waterman, apply Alignment::checkCriteria (E-value, seq-id,
 coverage, min alignment length), sort per query by Matcher::compareHits,
 and write matcher-format lines (optionally with backtraces, -a).
 
-TPU-native path: candidate pairs are bucketed by padded lengths and
+Device path: candidate pairs are bucketed by padded lengths and
 aligned in dense device batches by SearchDriver (search/driver.py); the
 per-pair scalar loop of the reference becomes a handful of batched
 kernel launches.

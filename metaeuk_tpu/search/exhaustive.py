@@ -10,8 +10,8 @@ e-value <= -e for the gapped mode), sorted by (score desc, target key
 asc), capped at --max-seqs, written as prefilter lines with diagonal 0.
 
 This exact scalar path is the byte-parity surface; the production
-all-vs-all scoring path on TPU is the Pallas gapless kernel
-(ops/ungapped.py) and the fused SW kernel (ops/sw_pallas.py).
+all-vs-all scoring path on the device is the gapless scan
+(ops/ungapped.py) and the batched SW of the search driver.
 """
 
 import numpy as np

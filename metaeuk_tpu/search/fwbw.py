@@ -9,7 +9,7 @@ Alignment::checkCriteria (evalue is always 0), sorted by
 Matcher::compareHits and written with compressed backtraces
 (Fwbw.cpp:1124-1172).
 
-The TPU batch path for this recurrence lives in ops/; this module is
+This module is
 the byte-parity host implementation for the CLI command.
 """
 

@@ -1,6 +1,6 @@
 """K-mer inverted-index prefilter (double-diagonal matching).
 
-TPU-era redesign of the reference's k-mer prefilter
+A redesign of the reference's k-mer prefilter
 (lib/mmseqs/src/prefiltering/: IndexTable.h:65, IndexBuilder.cpp:55,
 QueryMatcher.cpp:213-340): an inverted index over target k-mers feeds a
 double-hit-on-same-diagonal candidate screen, and survivors are rescored

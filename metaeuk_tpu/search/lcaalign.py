@@ -13,7 +13,7 @@ defaults (``--alignment-mode 1`` => Matcher::SCORE_ONLY output):
   region against every prefilter candidate with the top hit's E-value as
   threshold (Alignment.cpp:444-498) — the accelerated 2bLCA.
 
-TPU mapping: all per-pair Smith-Watermans of a stage are batched through
+Device mapping: all per-pair Smith-Watermans of a stage are batched through
 SearchDriver (dense, length-bucketed device launches); the cheap
 sequential accept/reject bookkeeping replays on host over the computed
 results, which is exact because each pair's alignment is independent.

@@ -5,7 +5,7 @@ linclust.sh: select m lowest-hash k-mers per sequence, group sequences
 sharing a selected k-mer under the longest member as center, verify
 candidate edges by alignment, then greedy incremental clustering).  The
 design is this framework's own: numpy vectorized k-mer hashing + selection
-on the host, candidate verification through the batched TPU gapless/SW
+on the host, candidate verification through the batched device gapless/SW
 path (ops/ungapped.py / search driver), greedy set-cover assignment.
 
 Output format matches the reference cluster DB convention: one entry per

@@ -29,7 +29,7 @@ Port of the reference's linear search stack for amino-acid inputs:
     (restores query-centric results, applies the user E-value).
 
 The index is persisted as an .npz (kmer/id/pos/seqLen arrays + params)
-— a TPU-framework-native artifact replacing the reference's packed
+— this framework's own artifact replacing the reference's packed
 INDEX_DB; only the search OUTPUTS are interop surfaces.
 """
 

@@ -4,7 +4,7 @@ Mirrors the contract of the reference's ungapped prefilter
 (lib/mmseqs/src/prefiltering/ungappedprefilter.cpp:358-470): per query,
 targets with max-gapless-diagonal score > --min-ungapped-score are kept,
 sorted by (score desc, targetKey asc), truncated to --max-seqs. The scores
-come from the TPU gapless kernel (ops/ungapped.py) over blocked
+come from the device gapless scan (ops/ungapped.py) over blocked
 query x target cross products.
 """
 

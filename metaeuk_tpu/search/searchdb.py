@@ -2,8 +2,8 @@
 
 Ports of lib/mmseqs/src/workflow/{Search,Rbh,Map,EasySearch,EasyRbh}.cpp
 and data/workflow/{blastp,rbh,map,easysearch}.sh at their workflow
-defaults (single sensitivity step). The compute path is the TPU k-mer
-prefilter + Pallas SW align engines; this module is the orchestration
+defaults (single sensitivity step). The compute path is the k-mer
+prefilter + device SW align engines; this module is the orchestration
 plus the text/DB plumbing around them.
 
 result2rbh: lib/mmseqs/src/util/result2rbh.cpp — over the merged,

@@ -1,14 +1,14 @@
-"""Resident TPU search server (the reference gpuserver's role).
+"""Resident search server (the reference gpuserver's role).
 
 The reference's `gpuserver` (lib/mmseqs/src/util/gpuserver.cpp) keeps a
 padded target database resident in GPU memory so repeated `search
---gpu-server` invocations skip the load; the TPU-native equivalent
+--gpu-server` invocations skip the load; this server
 keeps the expensive per-process state resident instead:
 
 - the target DB's k-mer prefilter index (seconds to build),
-- the XLA-compiled alignment kernels (first TPU compile is 20-40s per
-  shape bucket; compiles are cached per process, so a resident process
-  amortises them across requests).
+- the compiled alignment executables (one compile per shape bucket,
+  cached per process, so a resident process amortises them across
+  requests).
 
 Protocol: one JSON object per line over a unix domain socket.
   {"op": "ping"}                          -> {"ok": true, "pid": ...}
@@ -29,7 +29,7 @@ import socketserver
 from .search import searchdb
 
 
-class TpuSearchServer:
+class SearchServer:
     def __init__(self, target_db, socket_path, sensitivity=5.7,
                  max_seqs=300, min_ungapped_score=15,
                  comp_bias_correction=True, mask_targets=True,
@@ -148,4 +148,4 @@ def client_request(socket_path, req, timeout=3600.0):
 
 
 def run_server(target_db, socket_path, **kw):
-    TpuSearchServer(target_db, socket_path, **kw).serve_forever()
+    SearchServer(target_db, socket_path, **kw).serve_forever()

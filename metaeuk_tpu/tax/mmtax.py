@@ -1,6 +1,6 @@
 """Full-parity NCBI taxonomy stack: the mmseqs-level taxonomy commands.
 
-Host-side (string/tree-heavy, no TPU work): exact behavioural port of the
+Host-side (string/tree-heavy, no device work): exact behavioural port of the
 reference's taxonomy module (lib/mmseqs/src/taxonomy/):
 
 - ``Taxonomy``: NcbiTaxonomy.{h,cpp} — taxdump trio loading

@@ -1,6 +1,6 @@
 // metaeuk_tpu native host layer.
 //
-// C++ implementations of the host-side hot loops that surround the TPU
+// C++ implementations of the host-side hot loops that surround the device
 // compute path — the role the reference implements natively in
 // lib/mmseqs/src (OpenMP C++): six-frame fragment scanning
 // (Orf::findForward, commons/Orf.cpp:228-348) and the per-group exon

@@ -6,7 +6,7 @@
 // CacheFriendlyOperations.cpp, UngappedAlignment.cpp, QueryMatcher.cpp)
 // for byte-identical candidate sets, in this framework's own structure:
 // one flat C ABI driven from Python, host-side only (the batched gapless
-// rescore for throughput mode runs on TPU via ops/ungapped.py; this core
+// rescore for throughput mode runs on the device via ops/ungapped.py; this core
 // is the exact-parity path and the candidate-set oracle).
 //
 // Scope: amino-acid query vs amino-acid target, spaced k-mers with

@@ -25,12 +25,29 @@ from metaeuk_tpu.search.gumbel import fit_gapped, lambda_ungapped
 
 import os
 
-REFDATA = os.path.join(os.path.dirname(__file__), "..", ".refsrc", "lib",
-                       "mmseqs", "data")
-if not os.path.isdir(REFDATA):
-    # fresh checkout without the .refsrc working copy: the pristine
-    # read-only reference tree carries the same matrix data files
-    REFDATA = "/root/reference/lib/mmseqs/data"
+from metaeuk_tpu.data import submat as _submat
+from metaeuk_tpu.data import vtml80 as _vtml80
+
+
+def _matrix_file(halfbit, lam, back):
+    """A .out matrix file (the reference's format) serialised from a
+    baked half-bit table, its lambda and its background."""
+    rows = halfbit.strip().split("\n")
+    lines = ["# Background (precomputed optional): "
+             + " ".join(f"{b:.5f}" for b in back),
+             f"# Lambda     (precomputed optional): {lam}",
+             "   " + "  ".join(ALPHABET)]
+    lines += [f"{a} {r}" for a, r in zip(ALPHABET, rows)]
+    return "\n".join(lines) + "\n"
+
+
+MATRIX_FILES = {
+    "blosum62.out": _matrix_file(_submat._BLOSUM62_HALFBIT,
+                                 _submat._BLOSUM62_LAMBDA,
+                                 _submat._BLOSUM62_BACK),
+    "VTML80.out": _matrix_file(_vtml80._VTML80_HALFBIT,
+                               _vtml80._VTML80_LAMBDA, _vtml80._VTML80_BACK),
+}
 
 # (matrix, gapOpen, gapExtend) -> (lambda, K) from the vendored ALP
 # (tools/alpfit/alp_params_tool, seed 42)
@@ -47,8 +64,7 @@ ALP_GOLD = {
 
 
 def test_matrix_file_parser_reproduces_baked_in_blosum62():
-    with open(os.path.join(REFDATA, "blosum62.out")) as f:
-        parsed = parse_matrix_file(f.read())
+    parsed = parse_matrix_file(MATRIX_FILES["blosum62.out"])
     scores, pback, pback2, _ = build_scores(parsed)
     assert np.array_equal(scores, BLOSUM62_SCORES)
     assert np.allclose(pback, BLOSUM62_PBACK)
@@ -57,8 +73,8 @@ def test_matrix_file_parser_reproduces_baked_in_blosum62():
 def test_matrix_file_parser_integer_scores_match_reference():
     """VTML80 integer matrix spot values (validated bit-exact against
     the reference's SubstitutionMatrix via tools/alpfit/print_submat)."""
-    with open(os.path.join(REFDATA, "VTML80.out")) as f:
-        scores, _, _, _ = build_scores(parse_matrix_file(f.read()))
+    scores, _, _, _ = build_scores(
+        parse_matrix_file(MATRIX_FILES["VTML80.out"]))
     a, c, w = ALPHABET.index("A"), ALPHABET.index("C"), ALPHABET.index("W")
     assert scores[a, a] == 5
     assert scores[c, c] == 10
@@ -92,10 +108,9 @@ def test_for_scoring_default_fast_path():
 
 def test_fit_gapped_smoke_tolerance():
     """Small-sample fit lands in the right neighbourhood (loose bound;
-    the full ALP-tolerance validation runs on the accelerator under
-    METAEUK_GUMBEL_FULL=1)."""
-    with open(os.path.join(REFDATA, "blosum62.out")) as f:
-        scores, pback, _, _ = build_scores(parse_matrix_file(f.read()))
+    the full ALP-tolerance validation below runs on the GPU)."""
+    scores, pback, _, _ = build_scores(
+        parse_matrix_file(MATRIX_FILES["blosum62.out"]))
     p = fit_gapped(scores, pback, 8, 2, n_pairs=2048, length=192,
                    chunk=512)
     lam_r, k_r = ALP_GOLD[("blosum62.out", 8, 2)]
@@ -103,16 +118,14 @@ def test_fit_gapped_smoke_tolerance():
     assert 0.2 < p["K"] / k_r < 5.0
 
 
-@pytest.mark.skipif(os.environ.get("METAEUK_GUMBEL_FULL") != "1",
-                    reason="full-sample validation needs accelerator "
-                           "time; run with METAEUK_GUMBEL_FULL=1")
+@pytest.mark.gpu
 def test_fit_gapped_full_alp_tolerance():
     """All seven (matrix, gap) combos within lambda 1.2% / K 6% of the
     vendored ALP (its own tolerance band 1%/5% plus Monte-Carlo
     allowance on both sides).  Runs tools/gumbel_validate.py in a
     SUBPROCESS so the 262k-pair SW simulations escape the conftest CPU
-    pinning and use the real accelerator (seconds vs tens of minutes —
-    the in-process form ran past a 40-minute timeout on this host)."""
+    pinning and use the GPU (the in-process CPU form takes longer than
+    a test run may)."""
     import pathlib
     import subprocess
     import sys

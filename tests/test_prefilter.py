@@ -50,22 +50,6 @@ def test_gapless_scores_match_naive():
         assert got[i] == gapless_naive(qs[i], ts[i], biases[i]), i
 
 
-def test_gapless_pallas_interpret_matches_xla():
-    from metaeuk_tpu.ops.ungapped import gapless_scores_xla
-    import jax.numpy as jnp
-    B, Lq, Lt = 4, 16, 16
-    q_enc = rng.integers(0, 20, (B, Lq)).astype(np.int32)
-    q_bias = np.zeros((B, Lq), np.int32)
-    q_len = np.full(B, Lq, np.int32)
-    t_enc = rng.integers(0, 20, (B, Lt)).astype(np.int32)
-    t_len = np.full(B, Lt, np.int32)
-    via_pallas = gapless_scores(q_enc, q_bias, q_len, t_enc, t_len, interpret=True)
-    via_xla = np.asarray(gapless_scores_xla(
-        jnp.asarray(q_enc), jnp.asarray(q_bias), jnp.asarray(q_len),
-        jnp.asarray(t_enc), Lq, Lt, t_len=jnp.asarray(t_len)))
-    assert np.array_equal(via_pallas, via_xla)
-
-
 def test_ungapped_prefilter_pipeline_matches_exhaustive():
     """On the fixture, the ungapped prefilter must keep all true candidate
     pairs -> identical final predictions to the exhaustive (golden) path."""

@@ -1,4 +1,4 @@
-"""Resident TPU search server tests: server responses, and byte
+"""Resident search server tests: server responses, and byte
 equality of server-routed search/prefilter with the direct commands
 (same code path, preloaded state).
 """
@@ -18,13 +18,13 @@ DATA = pathlib.Path(__file__).parent / "data"
 def served(tmp_path_factory):
     td = tmp_path_factory.mktemp("server")
     from metaeuk_tpu.cli import main
-    from metaeuk_tpu.server import TpuSearchServer, client_request
+    from metaeuk_tpu.server import SearchServer, client_request
     assert main(["createdb", str(DATA / "proteins.faa"),
                  str(td / "tdb")]) == 0
     assert main(["createdb", str(DATA / "queries_lin.faa"),
                  str(td / "qdb")]) == 0
     sock = str(td / "srv.sock")
-    server = TpuSearchServer(str(td / "tdb"), sock, warmup=False)
+    server = SearchServer(str(td / "tdb"), sock, warmup=False)
     t = threading.Thread(target=server.serve_forever, daemon=True)
     t.start()
     for _ in range(100):

@@ -32,7 +32,7 @@ SAN=$(mktemp -d)
 g++ -O1 -g -fsanitize=address,undefined -fno-sanitize-recover=undefined \
     -shared -fPIC -std=c++17 -fopenmp \
     native/host_ops.cpp native/prefilter.cpp native/nucl_align.cpp \
-    native/prefilter_nucl.cpp -o "$SAN/host_asan.so"
+    native/prefilter_nucl.cpp native/sw_host.cpp -o "$SAN/host_asan.so"
 g++ -O1 -g -fsanitize=address,undefined -fno-sanitize-recover=undefined \
     -ffp-contract=off -shared -fPIC -std=c++17 \
     native/fwbw.cpp -o "$SAN/fwbw_asan.so"

@@ -13,8 +13,10 @@ With a split count, the target-split prefilter fans splits over the
 processes (parallel/dist_prefilter.py, runMpiSplits role).
 
 Used by tests/test_dist.py::test_two_process_distributed_easy_predict
-(CPU backend, gloo collectives) and launchable as-is on multi-host TPU
-slices where the usual jax.distributed environment applies.
+(CPU backend, gloo collectives). On a GPU host each process sees only its
+own card, the one numbered by its process id (CUDA_VISIBLE_DEVICES):
+a JAX process reserves most of a card's memory when it starts, so two
+processes cannot share one.
 """
 
 import pathlib
@@ -28,9 +30,12 @@ def main():
     split = int(sys.argv[7]) if len(sys.argv) > 7 else 0
     import os
 
+    cpu = os.environ.get("JAX_PLATFORMS", "") == "cpu"
+    if not cpu:
+        os.environ.setdefault("CUDA_VISIBLE_DEVICES", pid)
     import jax
-    # don't touch jax.devices()/default_backend() before initialize()
-    if os.environ.get("JAX_PLATFORMS", "") == "cpu":
+    # don't touch jax.devices() or the platform before initialize()
+    if cpu:
         jax.config.update("jax_cpu_collectives_implementation", "gloo")
     jax.distributed.initialize(coordinator_address=coord,
                                num_processes=int(nprocs),

@@ -109,7 +109,7 @@ def trial_nucl_search(rng, td):
          "--search-type", "3")
     # with unsplit inputs the reference's dbOrfStart/End columns (13-14)
     # are uninitialized stack bytes (offsetalignment updateOffset on
-    # passthrough splitsequence headers; documented in STATUS.md) —
+    # passthrough splitsequence headers) —
     # compare everything else
     def canon(path):
         out = []

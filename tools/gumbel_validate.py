@@ -1,6 +1,6 @@
 """Full Gumbel-fit validation vs the vendored ALP goldens, on the real
-accelerator (the 262k-pair SW simulations take seconds on TPU vs tens
-of minutes on the CPU backend the test suite pins itself to — the
+accelerator (the 262k-pair SW simulations run on the device instead of
+the CPU backend the test suite pins itself to — the
 gated test in tests/test_gumbel.py runs THIS script in a subprocess so
 the sims escape the conftest CPU forcing).
 

@@ -1,4 +1,4 @@
-"""Host k-mer prefilter vs TPU gapless prefilter crossover benchmark.
+"""Host k-mer prefilter vs device gapless prefilter crossover benchmark.
 
 The reference ships two prefilter engines: the CPU k-mer/double-diagonal
 engine (prefiltering/Prefiltering.cpp) and the GPU gapless engine
@@ -10,7 +10,7 @@ measured decision, not a guess.
     python tools/prefilter_crossover.py [n_queries] [sizes...]
 
 Prints one JSON line per DB size: build+match seconds for the k-mer
-engine, kernel seconds for the TPU gapless engine, and the implied
+engine, kernel seconds for the device gapless engine, and the implied
 queries/s of each (steady state: k-mer index build is amortized across
 the whole run, so match-only rate is also reported).
 """
